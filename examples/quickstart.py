@@ -1,5 +1,6 @@
-"""Quickstart: run each estimator on a reference map, refine with the
-pose-graph BA stage, and write a DataGatherer-style report.
+"""Quickstart: run each estimator on an in-repo map (default: the
+webmap-shaped data/webmap_like.mat), refine with the pose-graph BA stage,
+and write a DataGatherer-style report.
 
     python examples/quickstart.py [map.mat]
 """
@@ -9,7 +10,7 @@ import sys
 import numpy as np
 
 from slam_tpu.config import SlamConfig
-from slam_tpu.maps import read_map_file, synthetic_map
+from slam_tpu.maps import load_reference_like, read_map_file
 from slam_tpu.posegraph import problem_from_run, solve_ba
 from slam_tpu.runtime import Runner, compute_metrics, write_report
 
@@ -20,8 +21,7 @@ def main():
         slam_map = read_map_file(map_path)
         cfg = SlamConfig.from_ini(map_path.rsplit(".", 1)[0] + ".ini")
     else:
-        slam_map = synthetic_map(40, 20, radius=60.0)
-        cfg = SlamConfig(V=2.0, WHEELBASE=2.0, MAX_RANGE=25.0)
+        cfg, slam_map = load_reference_like("webmap_like")
 
     for method, n_particles in [("EKF1", None), ("FASTSLAM1", 100),
                                 ("FASTSLAM2", 100)]:

@@ -1,6 +1,6 @@
 // Native runtime components for slam_tpu.
 //
-// The reference implements its whole runtime in C++; the TPU build keeps
+// The reference implements its whole runtime in C++; this build keeps
 // the compute path in XLA but implements the runtime I/O natively too:
 //
 //  1. Telemetry publisher: the NetworkPlot ZMQ wire protocol

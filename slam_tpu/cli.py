@@ -1,4 +1,4 @@
-"""Command-line shell: the slam-backend application, TPU-native.
+"""Command-line shell: the slam-backend application.
 
 Flag-compatible with the reference backend (SLAMBackendApplication.cpp:
 44-57 printUsage): ``-m <map.mat>``, ``-n <name>``, ``-mode
@@ -25,7 +25,7 @@ from slam_tpu.maps import read_map_file
 
 
 USAGE = """\
-slam_tpu backend — TPU-native landmark SLAM
+slam_tpu backend — landmark SLAM in JAX
 Usage: python -m slam_tpu [options]
     -m <file>        map file (.mat text format)
     -n <name>        simulation name (report directory)
@@ -83,6 +83,8 @@ def main(argv: list[str] | None = None) -> int:
     slam_map = read_map_file(map_path)
 
     from slam_tpu.runtime import Runner, compute_metrics, write_report
+    from slam_tpu.runtime.device import enable_compile_cache
+    enable_compile_cache()
     runner = Runner(config, slam_map, method,
                     n_particles=int(n_particles) if n_particles else None)
 

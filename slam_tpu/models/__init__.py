@@ -1,6 +1,6 @@
 """Estimators: EKF-SLAM, FastSLAM 1.0, FastSLAM 2.0.
 
-TPU-first re-designs of the reference algorithms (src/backend/algorithms/):
+Re-designs of the reference algorithms (src/backend/algorithms/):
 struct-of-arrays fixed-capacity state, mask-driven landmark growth, vmapped
 particle axes, jittable step functions.
 """

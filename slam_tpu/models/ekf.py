@@ -1,12 +1,12 @@
 """EKF-SLAM: joint-state extended Kalman filter over pose + landmarks.
 
-TPU-first re-design of the reference EKF (src/backend/algorithms/ekfslam.cpp):
+Re-design of the reference EKF (src/backend/algorithms/ekfslam.cpp):
 the reference grows a dense Eigen state/covariance 2 rows at a time
 (ekfslam.cpp:284-316) and data-associates with an O(obs x features) scalar
 scan (ekfslam.cpp:151-189). Here the state has *fixed capacity* — landmark
 growth is a masked scatter, association is one batched [max_obs, L] gated
 nearest-neighbor computation, and the batch update is a single dense
-[2K, N] x [N, N] Kalman step that XLA maps onto the MXU.
+[2K, N] x [N, N] Kalman step that XLA hands to the matrix units.
 
 State layout (SURVEY.md §7): x = [x, y, theta, lm0x, lm0y, lm1x, ...] with
 capacity ``L`` landmarks; ``n`` is the live landmark count; slots >= n are
@@ -37,7 +37,7 @@ def _diag_blocks_2x2(Pm, L: int):
     """[L, 2, 2] per-landmark diagonal blocks of the [2L, 2L] map
     covariance, read as three strided diagonals — O(L) memory traffic.
     (The obvious ``Pm.reshape(L, 2, L, 2)[arange, :, arange, :]`` gather
-    materializes O(L^2) intermediates on TPU — a hard wall at 10k
+    can materialize O(L^2) intermediates — a hard wall at 10k
     landmarks; the reference has the same scaling pain in its dense
     per-pair association scan, ekfslam.cpp:65-77, 151-189.)"""
     d0 = jnp.diagonal(Pm)                     # [2L]
@@ -119,10 +119,9 @@ def ekf_predict(state: EKFState, v, g, Q, wheelbase: float, dt: float
         jnp.stack([dt * sg / wheelbase, v * dt * cg / wheelbase]),
     ]).astype(P.dtype)
 
-    # All covariance products at f32 (HIGHEST): the TPU default bf16 MXU
-    # precision injects ~4e-3 relative error per tick which random-walks
-    # P indefinite within ~50 observation cycles (measured: min
-    # eigenvalue -0.025, NaN at the next Cholesky).
+    # All covariance products at full f32 (HIGHEST): a reduced-precision
+    # product (bf16, or TF32 on a GPU) injects relative error per tick
+    # that random-walks P indefinite, then NaN at the next Cholesky.
     mm = lambda a, b: jnp.matmul(a, b, precision=_HIGHEST)
     P00 = mm(mm(Gv, P[:3, :3]), Gv.T) \
         + mm(mm(Gu, jnp.asarray(Q, P.dtype)), Gu.T)
@@ -190,7 +189,9 @@ def _innovation_stats(state: EKFState, z, zmask, R):
     vfull = vfull.at[..., 1].set(wrap_angle(vfull[..., 1]))
 
     Si = inv_2x2(S)                                   # [L, 2, 2]
-    nis = jnp.einsum("kla,lab,klb->kl", vfull, Si, vfull)
+    # HIGHEST: a TF32 product can flip gated associations.
+    nis = jnp.einsum("kla,lab,klb->kl", vfull, Si, vfull,
+                     precision=_HIGHEST)
     det = S[:, 0, 0] * S[:, 1, 1] - S[:, 0, 1] * S[:, 1, 0]
     nd = nis + jnp.log(jnp.maximum(det, 1e-30))[None, :]
 
@@ -236,7 +237,7 @@ def ekf_batch_update(state: EKFState, z, assoc, R) -> EKFState:
     """Single dense Kalman step over all matched observations
     (batchUpdate, ekfslam.cpp:238-267). Unmatched slots contribute zero
     rows of H and zero innovation — exactly no update — so the whole thing
-    is one fixed-shape [2K, N] MXU-friendly solve."""
+    is one fixed-shape [2K, N] solve."""
     K = z.shape[0]
     L = state.capacity
     N = 3 + 2 * L
@@ -270,7 +271,7 @@ def ekf_batch_update(state: EKFState, z, assoc, R) -> EKFState:
     x_new = x_new.at[2].set(wrap_angle(x_new[2]))
     # Symmetrize: the subtractive P - W1 W1' form drifts off-symmetric
     # in f32 over thousands of steps, eventually breaking the next
-    # Cholesky (observed on TPU; CPU f32 summation order survives).
+    # Cholesky (how soon depends on the device's summation order).
     P_new = 0.5 * (P_new + P_new.T)
     return state._replace(x=x_new, P=P_new)
 

@@ -14,12 +14,11 @@ small-matrix components unpacked into planes:
     lm   [2, L, P]    landmark means (x-plane, y-plane)
     lm_P [3, L, P]    landmark covariances, packed symmetric (00, 01, 11)
 
-Why planes and particle-last: TPU memory is tiled (sublane x 128-lane);
-an array shaped [P, L, 2, 2] stores its trailing 2x2 in a (2, 128) tile —
-a 64x padding blowout (observed: a 560 MB covariance array allocating
-35.8 GB). With P on the lane axis every plane tiles densely, elementwise
-particle math is perfectly VPU-shaped, and the Pallas kernels
-(slam_tpu.ops.pallas) consume the planes with zero layout conversion.
+Why planes and particle-last: every plane is a dense row of P floats, so
+elementwise particle math reads and writes contiguous memory, a slot's
+row for all particles is one contiguous [P] vector, and the particle
+axis shards on its own (slam_tpu.parallel). Small trailing 2x2 or 3x3
+blocks would instead interleave the components of each particle.
 
 Landmark growth is a masked write at a shared slot: the reference uses
 *known* association for both FastSLAM variants (fastslam1wrapper.cpp:76-79,
@@ -135,57 +134,10 @@ def unpack_particle_planes(state: ParticleState, flat) -> ParticleState:
 def gather_particles(state: ParticleState, idx) -> ParticleState:
     """Reindex the per-particle arrays by ancestor indices (the
     copy-and-keep step of resampleParticles, core.cpp:736-748). ``idx``
-    indexes the trailing particle axis.
-
-    On TPU the heavy lifting goes through the sorted-gather Pallas
-    kernel (slam_tpu.ops.pallas.gather): XLA's lane-axis gather with
-    runtime indices reads scattered 4-byte elements against a 512-byte
-    HBM sector — measured 45-180 ms for the full 1M-particle state in
-    the compiled run loop (beware: benchmarking this with *constant*
-    indices lies, XLA const-folds the permutation) — while the kernel
-    rides the non-decreasing structure of stratified ancestors
-    (contiguous input windows per output block) for sequential DMA.
-    On CPU (tests) it falls back to packing into one [C, P] matrix and
-    a single XLA gather."""
-    if jax.default_backend() == "tpu":
-        from slam_tpu.ops.pallas.gather import sorted_gather_multi
-        return _gather_tpu(state, sorted_gather_multi, idx)
+    indexes the trailing particle axis: the state is packed into one
+    [C, P] matrix and gathered by a single XLA gather."""
     flat = pack_particle_planes(state)
     return unpack_particle_planes(state, flat[:, idx])
-
-
-def gather_particles_bounds(state: ParticleState, S,
-                            interpret: bool = False) -> ParticleState:
-    """TPU resample gather driven directly by offspring bounds ``S``
-    (slam_tpu.ops.resampling.offspring_bounds) — the ancestor index
-    vector is never materialized, which removes the O(N) run-length
-    decode (a serialized 1-D scatter, ~11 ms at 1M) from the resample
-    path. Non-TPU callers should use gather_particles."""
-    import functools
-
-    from slam_tpu.ops.pallas.gather import bounds_gather_multi
-    return _gather_tpu(
-        state, functools.partial(bounds_gather_multi,
-                                 interpret=interpret), S)
-
-
-def _gather_tpu(state: ParticleState, gather_fn, sel) -> ParticleState:
-    """Shared TPU gather: reshaped views (leading-axis collapse — no
-    data movement) go straight to the multi-ref kernel; only the 10
-    small pose rows are packed (40 MB at 1M particles). The round-3
-    single-ref path concatenated + padded the FULL state — two extra
-    state-sized copies per resample."""
-    P = state.n_particles
-    L = state.capacity
-    small = jnp.concatenate([state.logw[None, :], state.xv,
-                             state.Pv], axis=0)              # [10, P]
-    small_g, lm_g, lmP_g = gather_fn(
-        [small, state.lm.reshape(2 * L, P),
-         state.lm_P.reshape(3 * L, P)], sel)
-    N = small_g.shape[-1]
-    return state._replace(
-        logw=small_g[0], xv=small_g[1:4], Pv=small_g[4:10],
-        lm=lm_g.reshape(2, L, N), lm_P=lmP_g.reshape(3, L, N))
 
 
 # ---------------------------------------------------------------------------

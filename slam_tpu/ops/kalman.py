@@ -34,10 +34,10 @@ def joseph_update(x, P, v, r, H):
     Returns updated (x, P). P gets the reference's +eps*I jitter.
     """
     # f32 (HIGHEST) matmul precision throughout: covariance updates
-    # collapse to NaN under the TPU's default bf16 MXU precision.
+    # collapse to NaN under reduced-precision (bf16 or TF32) products.
     mm = lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
     PHt = mm(P, H)                   # [N]
-    s = H @ PHt + r                  # scalar
+    s = mm(H, PHt) + r               # scalar
     W = PHt / s                      # [N]
     x_new = x + W * v
     n = x.shape[-1]
@@ -82,14 +82,15 @@ def feature_update_2x2(xf, Pf, v, R, Hf):
     xf += W v; Pf -= W S W^T. Inputs: xf [..., 2], Pf [..., 2, 2],
     v [..., 2], R [2, 2], Hf [..., 2, 2]. Returns (xf', Pf').
     """
-    PHt = Pf @ jnp.swapaxes(Hf, -1, -2)           # [..., 2, 2]
-    S = Hf @ PHt + R
+    mm = lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+    PHt = mm(Pf, jnp.swapaxes(Hf, -1, -2))        # [..., 2, 2]
+    S = mm(Hf, PHt) + R
     S = 0.5 * (S + jnp.swapaxes(S, -1, -2))
     Si = inv_2x2(S)
-    W = PHt @ Si
-    xf_new = xf + (W @ v[..., None])[..., 0]
+    W = mm(PHt, Si)
+    xf_new = xf + mm(W, v[..., None])[..., 0]
     # P' = P - W S W^T == P - W (PHt)^T, numerically the W1 W1^T form:
-    Pf_new = Pf - W @ jnp.swapaxes(PHt, -1, -2)
+    Pf_new = Pf - mm(W, jnp.swapaxes(PHt, -1, -2))
     Pf_new = 0.5 * (Pf_new + jnp.swapaxes(Pf_new, -1, -2))
     return xf_new, Pf_new
 

@@ -5,13 +5,9 @@ These functions express the hot per-(particle x landmark) math —
 ``computeJacobians`` (core.cpp:666-713), ``featureUpdate``/2x2 Kalman
 (core.cpp:132-175, 275-291), Gaussian likelihood (fastslam1.cpp:91-118,
 fastslam2.cpp:127-163) — as elementwise arithmetic over broadcastable
-arrays ("planes", typically shaped [K, P_block] with the particle axis on
-TPU lanes). They are the single source of truth for BOTH:
-
-- the jnp estimator path (slam_tpu.models.fastslam{1,2}), where XLA fuses
-  them into a handful of VPU loops, and
-- the Pallas kernels (slam_tpu.ops.pallas.kernels), whose bodies call
-  these exact functions on values loaded from VMEM refs.
+arrays ("planes", typically shaped [K, P] with the particle axis last).
+The estimators (slam_tpu.models.fastslam{1,2}) call them on whole planes,
+and XLA fuses each chain into a handful of elementwise loops.
 
 Everything is branch-free; degenerate inputs (padded landmarks at
 distance 0, singular S) are guarded with epsilons and masked by callers.
@@ -30,29 +26,6 @@ from slam_tpu.geometry import wrap_angle
 # backend at import time, breaking jax.distributed.initialize() in
 # multi-process runs (it must run before any backend touch).
 _LOG_2PI = math.log(2.0 * math.pi)
-_PI = math.pi
-_HALF_PI = 0.5 * _PI
-
-
-def atan2_poly(y, x):
-    """Pallas-TPU-safe atan2: odd minimax polynomial for atan on [0, 1]
-    plus quadrant reconstruction (the TPU Mosaic lowering has no atan2
-    primitive). Max abs error ~1e-6 rad — three orders of magnitude below
-    the sigmaB=1 deg bearing noise floor. Used by BOTH the jnp and the
-    Pallas path so golden tests compare identical math."""
-    ax = jnp.abs(x)
-    ay = jnp.abs(y)
-    mx = jnp.maximum(ax, ay)
-    mn = jnp.minimum(ax, ay)
-    z = mn / jnp.maximum(mx, 1e-30)
-    s = z * z
-    # atan(z), z in [0, 1]: minimax odd polynomial (Abramowitz-Stegun
-    # style refit), |err| < 1.1e-6.
-    p = (((((-0.0117212 * s + 0.05265332) * s - 0.11643287) * s
-           + 0.19354346) * s - 0.33262348) * s + 0.99997726) * z
-    r = jnp.where(ay > ax, _HALF_PI - p, p)
-    r = jnp.where(x < 0.0, _PI - r, r)
-    return jnp.where(y < 0.0, -r, r)
 
 
 class JacobianPlanes(NamedTuple):
@@ -79,7 +52,7 @@ class JacobianPlanes(NamedTuple):
 def jacobians_planes(xvx, xvy, xvt, lmx, lmy, p00, p01, p11,
                      r00, r01, r11) -> JacobianPlanes:
     """computeJacobians in plane form (core.cpp:666-713): ~30 flops per
-    element, all VPU."""
+    element, all elementwise."""
     dx = lmx - xvx
     dy = lmy - xvy
     d2 = jnp.maximum(dx * dx + dy * dy, 1e-12)
@@ -88,7 +61,7 @@ def jacobians_planes(xvx, xvy, xvt, lmx, lmy, p00, p01, p11,
     inv_d2 = 1.0 / d2
 
     zr = d
-    zb = wrap_angle(atan2_poly(dy, dx) - xvt)
+    zb = wrap_angle(jnp.arctan2(dy, dx) - xvt)
 
     a = dx * inv_d
     b = dy * inv_d

@@ -11,11 +11,10 @@ stratifiedRandom / cumulativeSum (core.cpp:718-824) with:
 - a CLOSED-FORM O(N) ancestor pick instead of the reference's O(N^2)
   cumulativeSum (core.cpp:813-824) + linear merge. Because the u grid is
   affine-plus-dither, "how many u fall below csum_i" is computable
-  directly (one gather of the dither at floor(N*csum)) — no binary
-  search. jnp.searchsorted lowers to ~20 serialized 1-D HBM gathers on
-  TPU (measured 132 ms per call at 1M particles, 1.7 GiB/s); the closed
-  form is ~20x cheaper and exactly equivalent up to float-boundary ties
-  of zero probability;
+  directly (the dither evaluated at floor(N*csum)) — no binary search,
+  whose log2(N) dependent gathers the closed form replaces with one
+  elementwise pass; exactly equivalent up to float-boundary ties of
+  zero probability;
 - the reference's semantics: weights are normalized on every call, but
   particles are copied (and weights reset to uniform) only when
   ``do_resample`` and Neff < n_min (core.cpp:739-748).
@@ -42,14 +41,10 @@ def effective_particles(logw):
 
 
 def _cummax_2d(x):
-    """lax.cummax for long 1-D int vectors via a [rows, lanes] block
-    decomposition. XLA's native 1-D cumulative ops on TPU run in a
-    T(1024) serialized layout (measured 6.9 ms at 0.5 GiB/s for [1M]
-    int32); within-row scan + row-prefix combine runs at VPU speed.
-    Non-multiple lengths are padded (identity element at the tail
-    doesn't change any prefix) — the round-3 version silently fell
-    back to the serialized op whenever 1024 didn't divide n, which is
-    every webmap particle count."""
+    """lax.cummax for long 1-D int vectors via a [rows, 1024] block
+    decomposition: a within-row scan plus a combine of the row
+    prefixes. Non-multiple lengths are padded (the identity element at
+    the tail doesn't change any prefix)."""
     n = x.shape[0]
     C = 1024
     if n <= C:
@@ -67,11 +62,10 @@ def _cummax_2d(x):
 
 
 def _cumsum_2d(x):
-    """Blocked inclusive cumsum for long 1-D f32 vectors (same layout
-    trick as _cummax_2d; XLA's 1-D cumsum serializes identically —
-    the 6.8 ms `fusion` in the 1M-particle resample trace was this).
-    Summation order differs from jnp.cumsum by the block regrouping;
-    the stratified pick tolerates any consistent prefix-sum."""
+    """Blocked inclusive cumsum for long 1-D f32 vectors (same block
+    decomposition as _cummax_2d). Summation order differs from
+    jnp.cumsum by the block regrouping; the stratified pick tolerates
+    any consistent prefix-sum."""
     n = x.shape[0]
     C = 1024
     if n <= C:
@@ -90,8 +84,8 @@ def _uniform_at(key, pos):
     """Counter-based U_pos ~ Uniform[0,1) evaluated pointwise at integer
     positions ``pos`` (equal positions get equal draws — it is one random
     function of position). Replaces "materialize U[n] then gather at
-    pos": the dynamic 1-D gather serializes on TPU, while the vmapped
-    fold_in is pure elementwise threefry that XLA fuses."""
+    pos" with a vmapped fold_in: pure elementwise threefry that XLA
+    fuses, with no dynamic gather."""
     sub = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(key, pos)
     bits = jax.vmap(lambda q: jax.random.bits(q, (), jnp.uint32))(sub)
     return (bits >> jnp.uint32(8)).astype(jnp.float32) * jnp.float32(
@@ -118,8 +112,8 @@ def offspring_bounds(key, csum, n_out: int):
     # the within-row chain, so csum can DIP by 1 ulp at row
     # boundaries (measured: 59 one-ulp dips over 1M entries, all at
     # positions == blocklen-1) — which would make S locally
-    # decreasing and two ancestors claim the same output slot in the
-    # interval-partition consumers (bounds_gather). A running max
+    # decreasing and two ancestors claim the same output slot in
+    # ancestors_from_bounds. A running max
     # restores the partition; the affected boundary draws shift by at
     # most one slot.
     S = _cummax_2d(jnp.minimum(S, n_out)).at[-1].set(n_out)

@@ -4,8 +4,8 @@ resampling.
 No reference counterpart — the reference is single-threaded per process
 (SURVEY.md §2.9); its only heterogeneous-parallel component is the FPGA
 Jacobian offload. Here the particle axis is sharded over a
-``jax.sharding.Mesh`` (ICI within a slice, DCN across hosts via
-``jax.distributed``), per-particle math runs embarrassingly parallel under
+``jax.sharding.Mesh`` (NVLink between the cards of a host, the network
+across hosts via ``jax.distributed``), per-particle math runs embarrassingly parallel under
 ``shard_map``, and the two global synchronization points — weight
 normalization/Neff and stratified resampling — run as XLA collectives
 (psum / all_gather of scalars) plus a memory-safe ppermute ring for the

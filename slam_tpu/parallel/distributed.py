@@ -1,10 +1,11 @@
 """Multi-host initialization and mesh construction.
 
 One process per host, jax.distributed coordination; after initialize()
-``jax.devices()`` spans every chip in the slice and the 1-D particle
-mesh of slam_tpu.parallel.mesh works unchanged — collectives ride ICI
-within a slice and DCN across slices. (The reference has no distributed
-compute at all; its only networking is GUI telemetry — SURVEY.md §2.9.)
+``jax.devices()`` spans every card of every host and the 1-D particle
+mesh of slam_tpu.parallel.mesh works unchanged — collectives ride NVLink
+between the cards of a host (all to all, one rate) and the network
+between hosts. (The reference has no distributed compute at all; its
+only networking is GUI telemetry — SURVEY.md §2.9.)
 """
 
 from __future__ import annotations
@@ -17,9 +18,8 @@ from slam_tpu.parallel.mesh import make_mesh
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """Initialize multi-host JAX. On TPU pods all arguments are
-    auto-detected from the environment; arguments are for CPU/GPU
-    clusters or tests."""
+    """Initialize multi-host JAX. Pass all three arguments where the
+    environment names no cluster (the coordinator as ``host:port``)."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address

@@ -4,9 +4,9 @@ The reference's scaling wall is the dense joint covariance: every observe
 does O(N^2) work on one core and the matrix is O(L^2) in landmarks
 (ekfslam.cpp:65-77, batchUpdate ekfslam.cpp:238-267). At the 10k-landmark
 BASELINE config the joint covariance is [20003, 20003] f32 = 1.6 GB —
-too big to replicate per chip and far too big to update densely.
+too big to replicate per device and far too big to update densely.
 
-TPU-first decomposition (SURVEY.md §2.9 "block-sharded covariance"):
+Decomposition (SURVEY.md §2.9 "block-sharded covariance"):
 
     P = [ P00  P0m ]     P00 [3, 3]     replicated   (pose block)
         [ P0m' Pmm ]     P0m [3, 2L]    replicated   (pose-landmark)
@@ -63,8 +63,7 @@ class ShardedEKFState(NamedTuple):
     scaled columns u_t = c_m / sqrt(s_t) accumulate here and fold into
     Pmm once per observe: true Pmm = stored Pmm - hk hk'. Exact
     algebra; it converts 8 O(L^2) full-covariance passes per superstep
-    into 8 O(L) cross-row updates + ONE fold (trace: the eager form
-    was 39 ms of the 82 ms 10k-landmark superstep).
+    into 8 O(L) cross-row updates + ONE fold.
     """
     x: jnp.ndarray
     P00: jnp.ndarray
@@ -258,7 +257,9 @@ def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
         vfull = z[:, None, :] - zp_a[None, :, :]
         vfull = vfull.at[..., 1].set(wrap_angle(vfull[..., 1]))
         Si = inv_2x2(S)
-        nis = jnp.einsum("kla,lab,klb->kl", vfull, Si, vfull)
+        # HIGHEST: a TF32 product can flip gated associations.
+        nis = jnp.einsum("kla,lab,klb->kl", vfull, Si, vfull,
+                         precision=_HIGHEST)
         det = S[:, 0, 0] * S[:, 1, 1] - S[:, 0, 1] * S[:, 1, 0]
         nd = nis + jnp.log(jnp.maximum(det, 1e-30))[None, :]
         bad = ~(valid[None, :] & zmask[:, None])
@@ -298,7 +299,7 @@ def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
     # PHt pose rows [3, 2K] (replicated) and landmark rows:
     #   PHt_m = Pm0 Hp' + Pmm Hm'  — local slab rows.
     # Pmm Hm' only touches the 2K observed block-columns, but a dense
-    # [2L, 2L] x [2L, 2K] matmul at HIGHEST costs ~5 ms at L = 10k.
+    # [2L, 2L] x [2L, 2K] matmul at HIGHEST reads all of Pmm.
     # By symmetry the needed columns are the observed ROWS (contiguous
     # gather); each shard contributes its owned subset and a psum
     # assembles the [2K, 2L] row block.
@@ -333,8 +334,8 @@ def _update_local(state: ShardedEKFState, z, ids, zmask, R, Re,
     W1_m = lax.all_gather(W1_m_loc, axis).reshape(N2, 2 * K)
 
     sv = sol(v)                                            # [2K]
-    dx_p = W1_p @ sv
-    dx_m = W1_m @ sv
+    dx_p = mm(W1_p, sv)
+    dx_m = mm(W1_m, sv)
     x = state.x.at[:3].add(dx_p)
     x = x.at[3:].add(dx_m)
     x = x.at[2].set(wrap_angle(x[2]))
@@ -415,15 +416,11 @@ def _augment_local(state: ShardedEKFState, z, ids, is_new, Re,
                           precision=_HIGHEST)
         NN = NN.at[jnp.arange(K), :, jnp.arange(K), :].add(diag)
 
-        # One-hot MXU placement instead of row/column scatters: the
-        # COLUMN scatter lowers to transpose-relayout copies (~5 full
-        # covariance passes — the 15 ms/firing reshape.713/copy.297
-        # chain in artifacts/trace_ekf10k_r05); expressed as matmuls
-        # against one-hot selectors the whole augment is one fused
-        # elementwise pass over Pmm plus two [rows, 2K] x [2K, 2L]
-        # contractions (~77 MFLOP-scale at K = 96, L = 10k). HIGHEST
-        # precision with an exactly-representable 0/1 operand places
-        # the values bit-exactly.
+        # One-hot placement instead of row/column scatters: expressed
+        # as matmuls against one-hot selectors the whole augment is one
+        # fused elementwise pass over Pmm plus two [rows, 2K] x [2K, 2L]
+        # contractions. HIGHEST precision with an exactly-representable
+        # 0/1 operand places the values bit-exactly.
         E = (row_idx[:, None] == jnp.arange(rows)[None, :]
              ).astype(dtype)                               # [2K, rows]
         F = (flat_cols[:, None] == jnp.arange(N2)[None, :]
@@ -440,11 +437,9 @@ def _augment_local(state: ShardedEKFState, z, ids, is_new, Re,
                             precision=_HIGHEST))
         return state._replace(x=x, P0m=P0m, Pmm=Pmm)
 
-    # Cond-gated: the conditional costs one full-covariance operand
-    # copy per superstep (copy.469 = 4.9 ms at L = 10k), but the
-    # branchless variant was measured SLOWER (287 vs 323 steps/s) —
-    # the two one-hot placement contractions are ~76 GMAC each at
-    # HIGHEST precision and, unconditionally, outweigh the copy.
+    # Cond-gated: the two one-hot placement contractions are ~76 GMAC
+    # each at HIGHEST precision (computed at K = 96, L = 10k), so they
+    # run only when a landmark is added.
     state = jax.lax.cond(jnp.any(ok), augment, lambda s: s, state)
     n = state.n + jnp.sum(ok, dtype=jnp.int32)
     table = state.da_table.at[
@@ -465,10 +460,9 @@ class ShardedEkfSlam:
     PREDICT_TOUCHED = ("x", "P00", "P0m", "Pmm")
     IS_EKF = True
     # Two supersteps per scan body: the batch update writes Pmm into a
-    # fresh buffer, so a 1-superstep body pays a full-covariance carry
-    # copy every iteration (copy.484 = 4.9 ms/superstep at L = 10k in
-    # artifacts/trace_ekf10k_r05); with A -> B -> A the second
-    # update's output lands back in the carry allocation.
+    # fresh buffer, so a 1-superstep body can pay a full-covariance
+    # carry copy every iteration; with A -> B -> A the second update's
+    # output lands back in the carry allocation.
     SCAN_PAIR = True
 
     def __init__(self, config, n_map_landmarks: int, mesh: Mesh):
@@ -532,7 +526,7 @@ class ShardedEkfSlam:
 def dense_covariance(state: ShardedEKFState) -> jnp.ndarray:
     """Reassemble the dense [3+2L, 3+2L] joint covariance (tests only),
     folding any deferred heading terms."""
-    Pmm = state.Pmm - state.hk @ state.hk.T
+    Pmm = state.Pmm - jnp.matmul(state.hk, state.hk.T, precision=_HIGHEST)
     top = jnp.concatenate([state.P00, state.P0m], axis=1)
     bot = jnp.concatenate([state.P0m.T, Pmm], axis=1)
     return jnp.concatenate([top, bot], axis=0)

@@ -47,11 +47,7 @@ class _ShardedFastSlamBase:
                  predict_noise: bool = True):
         self.config = config
         self.n_map = n_map_landmarks
-        # Capacity rounds up to a multiple of 8 (free: slots beyond
-        # ``n`` are dead) so the resample gather kernel's reshaped
-        # [2L, P]/[3L, P] views are sublane-aligned with no row pad.
-        cap = config.max_landmarks or n_map_landmarks
-        self.capacity = -(-cap // 8) * 8
+        self.capacity = config.max_landmarks or n_map_landmarks
         self.mesh = mesh
         self.axis = mesh.axis_names[0]
         self.n_shards = mesh.devices.size
@@ -89,14 +85,9 @@ class _ShardedFastSlamBase:
                 static_ring_size=S)
             return new_state._replace(logw=new_logw)
 
-        # The fused Pallas observe kernel operates on the shard-local
-        # particle block; enable it on TPU like the single-chip classes.
-        use_pallas = jax.default_backend() == "tpu"
-
         def update_local(state, key, z, ids, zmask, n_min):
             return update_fn(state, key, z, ids, zmask, Re, n_min,
                              do_resample=bool(cfg.SWITCH_RESAMPLE),
-                             use_pallas=use_pallas,
                              resample_fn=collective_resample)
 
         def pose_local(state):

@@ -4,8 +4,8 @@ Completes the TP analog from SURVEY.md §2.9: the per-particle landmark
 planes [*, L, P] shard over a 2-D mesh ``(p, l)`` — particles over `p`
 (data parallel), landmark SLOTS over `l` (tensor parallel). At the
 10k-landmark BASELINE config the planes are ~200 KB per particle; a
-1M-particle map no longer fits one chip (5 planes x 10k x 1M x 4 B =
-200 GB), so the landmark axis must shard.
+2^20-particle map no longer fits one 80 GB card (5 planes x 10k x 2^20
+x 4 B = 210 GB), so the landmark axis must shard.
 
 Communication per observe tick is tiny because known association routes
 every observation to exactly ONE landmark shard (the slot owner):
@@ -40,7 +40,6 @@ from slam_tpu.models import rbpf
 from slam_tpu.models.fastslam1 import fs1_predict
 from slam_tpu.models.fastslam2 import fs2_predict
 from slam_tpu.models.particles import ParticleState, init_particles
-from slam_tpu.ops.planes import log_gauss2_planes
 from slam_tpu.parallel.resampling import (
     ring_resample,
     sharded_estimate_position,
@@ -50,15 +49,12 @@ P_AXIS = "p"
 L_AXIS = "l"
 
 
-# Test hook: force the fused-kernel branch of _fs1_update_local in
-# Pallas interpret mode on CPU (the branch is TPU-only in production;
-# tests/test_landmark_sharding.py uses this to equality-check the
-# ownership-mask + psum wiring against the unfused path).
-_FORCE_FUSED_INTERPRET = False
 
 def make_mesh_2d(n_p: int, n_l: int, devices=None) -> Mesh:
-    """(p, l) mesh: particle axis major so ring resampling rides
-    neighboring devices."""
+    """(p, l) mesh, particle axis major. The cards of one host are joined
+    all to all (NVLink), so the layout follows the algorithm alone: the
+    ring resampler's ppermute over `p` and the weight psum over `l` see
+    the same link rate whichever cards they pair."""
     import numpy as np
     devices = devices if devices is not None else jax.devices()
     devices = np.asarray(devices[: n_p * n_l]).reshape(n_p, n_l)
@@ -86,57 +82,35 @@ def _local_slots(state: ParticleState, slot, matched):
     return jnp.where(own, slot - lo, 0), own
 
 
+def _observe_update_local(state: ParticleState, z, ids, slot, matched,
+                          is_new, R):
+    """rbpf.observe_update on this shard's landmark slab: each slot has
+    one owner, so the weight delta of the owned observations psums over
+    `l`; the new-feature slots are global, and each shard initializes the
+    ones in its slab. The count/table update is identical replicated
+    arithmetic (n and da_table are replicated over the mesh)."""
+    L_local = state.capacity            # local view inside shard_map
+    lo = lax.axis_index(L_AXIS) * L_local
+    slot_l, own = _local_slots(state, slot, matched)
+    slot_new, ok = rbpf.new_feature_slots(
+        state.n, is_new, L_local * lax.psum(1, L_AXIS))
+    ok_here = ok & (slot_new >= lo) & (slot_new < lo + L_local)
+    slot_new_l = jnp.where(ok_here, slot_new - lo, 0)
+    local = rbpf.observe_update(
+        state._replace(logw=jnp.zeros_like(state.logw)),
+        z.astype(state.xv.dtype), slot_l, own, slot_new_l, ok_here, R)
+    state = local._replace(
+        logw=state.logw + lax.psum(local.logw, L_AXIS))
+    return rbpf.register_new_features(state, ids, slot_new, ok)
+
+
 def _fs1_update_local(state: ParticleState, key, z, ids, zmask, R,
                       n_min, do_resample: bool, ring_p: int):
     """FastSLAM1 observe update with landmark slots sharded over `l`."""
     assoc, is_new = rbpf.associate_known(state, ids, zmask)
     matched = assoc >= 0
     slot = jnp.where(matched, assoc, 0)
-    slot_l, own = _local_slots(state, slot, matched)
-
-    from slam_tpu.ops.pallas.kernels import _fused_block, fs1_update_tpu
-    interpret = _FORCE_FUSED_INTERPRET
-    if ((jax.default_backend() == "tpu" or interpret)
-            and _fused_block(state.n_particles, state.capacity,
-                             z.shape[0]) is not None):
-        # Fused single-pass update (slam_tpu.ops.pallas kernel 4) with
-        # this shard's ownership masks; only the per-particle weight
-        # delta crosses shards (psum inside fs1_update_tpu). The
-        # unfused path below materializes ~20 [K, P_local] planes —
-        # at the config #5 shapes (K = 96, 1M particles) that is
-        # >10 GB of transients and the difference between fitting one
-        # chip and OOM.
-        L_local = state.capacity
-        lo = lax.axis_index(L_AXIS) * L_local
-        S_l = lax.psum(1, L_AXIS)
-        offset = (jnp.cumsum(is_new.astype(jnp.int32))
-                  - is_new.astype(jnp.int32))
-        slot_new = state.n + offset
-        ok = is_new & (slot_new < L_local * S_l)
-        ok_here = ok & (slot_new >= lo) & (slot_new < lo + L_local)
-        slot_new_l = jnp.where(ok_here, slot_new - lo, 0)
-        state = fs1_update_tpu(state, z.astype(state.xv.dtype), slot_l,
-                               own, slot_new_l, ok_here, R,
-                               psum_axis=L_AXIS, interpret=interpret)
-        table = state.da_table.at[
-            jnp.where(ok, ids, state.da_table.shape[0])].set(
-            slot_new, mode="drop")
-        state = state._replace(
-            n=state.n + jnp.sum(ok, dtype=jnp.int32), da_table=table)
-        return _resample_local(state, key, n_min, do_resample, ring_p)
-
-    gathered = rbpf.gather_landmarks(state, slot_l)
-    J, v0, v1 = rbpf.observe_planes(state, z.astype(state.xv.dtype),
-                                    slot_l, R, gathered)
-    logl = jnp.where(own[:, None],
-                     log_gauss2_planes(v0, v1, J.s00, J.s01, J.s11),
-                     0.0)
-    dlogw = lax.psum(jnp.sum(logl, axis=0), L_AXIS)
-    state = state._replace(logw=state.logw + dlogw)
-
-    state = rbpf.update_matched_features(state, slot_l, own, v0, v1, J,
-                                         gathered)
-    state = _add_new_local(state, z, ids, is_new, R)
+    state = _observe_update_local(state, z, ids, slot, matched, is_new, R)
     return _resample_local(state, key, n_min, do_resample, ring_p)
 
 
@@ -147,11 +121,7 @@ def _fs2_update_local(state: ParticleState, key, z, ids, zmask, R,
     replicated over `l` (sampleProposal, fastslam2.cpp:290-368); the
     feature EKF writes stay shard-local."""
     from slam_tpu.geometry import wrap_angle
-    from slam_tpu.models.fastslam2 import (
-        _PV_JITTER,
-        _log_likelihood_at,
-        _refine_proposal,
-    )
+    from slam_tpu.models.fastslam2 import _PV_JITTER, _refine_proposal
     from slam_tpu.ops import planes as pk
 
     assoc, is_new = rbpf.associate_known(state, ids, zmask)
@@ -196,60 +166,10 @@ def _fs2_update_local(state: ParticleState, key, z, ids, zmask, R,
         Pv=jnp.where(any_obs, jnp.zeros_like(state.Pv), Pv0),
     )
 
-    # Likelihood weighting at the sampled pose (replicated planes) +
-    # shard-local feature EKF updates.
-    log_lik = _log_likelihood_at(state.xv, zf, matched, gathered, R)
-    state = state._replace(logw=state.logw + log_lik)
-    J, v0, v1 = rbpf.observe_planes(state, zf, slot_l, R, local)
-    state = rbpf.update_matched_features(state, slot_l, own, v0, v1, J,
-                                         local)
-    state = _add_new_local(state, z, ids, is_new, R)
+    # Likelihood weighting + shard-local feature updates at the sampled
+    # pose.
+    state = _observe_update_local(state, z, ids, slot, matched, is_new, R)
     return _resample_local(state, key, n_min, do_resample, ring_p)
-
-
-def _add_new_local(state: ParticleState, z, ids, is_new, R):
-    """New features at globally-assigned slots; each l shard initializes
-    the slots in its slab. The count/table update is identical replicated
-    arithmetic (n and da_table are replicated over the mesh)."""
-    L_local = state.capacity
-    lo = lax.axis_index(L_AXIS) * L_local
-    R = jnp.asarray(R, state.lm.dtype)
-
-    offset = jnp.cumsum(is_new.astype(jnp.int32)) - is_new.astype(jnp.int32)
-    S_l = lax.psum(1, L_AXIS)
-    slot = state.n + offset
-    ok = is_new & (slot < L_local * S_l)
-    ok_here = ok & (slot >= lo) & (slot < lo + L_local)
-    slot_l = jnp.where(ok_here, slot - lo, 0)
-
-    def do_add(state):
-        from slam_tpu.ops.planes import feature_init_planes
-        nx, ny, p00, p01, p11 = feature_init_planes(
-            state.xv[0][None, :], state.xv[1][None, :],
-            state.xv[2][None, :],
-            z[:, 0][:, None].astype(state.lm.dtype),
-            z[:, 1][:, None].astype(state.lm.dtype),
-            R[0, 0], R[0, 1], R[1, 1])
-        lm = rbpf.scatter_slots(state.lm, slot_l,
-                                jnp.stack([nx, ny]), ok_here)
-        lm_P = rbpf.scatter_slots(state.lm_P, slot_l,
-                                  jnp.stack([p00, p01, p11]), ok_here)
-        n = state.n + jnp.sum(ok, dtype=jnp.int32)
-        table = state.da_table.at[
-            jnp.where(ok, ids, state.da_table.shape[0])].set(
-            slot, mode="drop")
-        return state._replace(lm=lm, lm_P=lm_P, n=n, da_table=table)
-
-    def no_add(state):
-        n = state.n + jnp.sum(ok, dtype=jnp.int32)
-        table = state.da_table.at[
-            jnp.where(ok, ids, state.da_table.shape[0])].set(
-            slot, mode="drop")
-        return state._replace(n=n, da_table=table)
-
-    # n/da_table must advance on EVERY shard (they are replicated); only
-    # the plane writes are conditional on owning a new slot.
-    return jax.lax.cond(jnp.any(ok_here), do_add, no_add, state)
 
 
 def _resample_local(state: ParticleState, key, n_min, do_resample: bool,

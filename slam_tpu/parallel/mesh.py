@@ -13,8 +13,9 @@ def make_mesh(n_devices: int | None = None, axis: str = PARTICLE_AXIS
               ) -> Mesh:
     """1-D device mesh over the particle axis. Multi-host: call
     jax.distributed.initialize() first; jax.devices() then spans hosts and
-    the same mesh construction works unchanged (collectives ride ICI
-    within a slice and DCN across)."""
+    the same mesh construction works unchanged (collectives ride NVLink
+    between the cards of a host, all to all, and the network across
+    hosts, so device order within a host does not matter)."""
     devices = jax.devices()
     if n_devices is not None:
         devices = devices[:n_devices]
@@ -23,7 +24,7 @@ def make_mesh(n_devices: int | None = None, axis: str = PARTICLE_AXIS
 
 def particle_state_specs(axis: str = PARTICLE_AXIS):
     """PartitionSpecs for ParticleState fields: per-particle arrays are
-    sharded on their TRAILING (lane) axis — see slam_tpu.models.particles
+    sharded on their TRAILING (particle) axis — see slam_tpu.models.particles
     for the planes layout; the shared landmark-count and association
     table are replicated."""
     from slam_tpu.models.particles import ParticleState

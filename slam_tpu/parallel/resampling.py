@@ -89,17 +89,8 @@ def ring_resample(state: Any, logw, key, n_min, do_resample, axis: str,
     def run_local(state):
         # Single p-shard: every ancestor is local, so the ring (which
         # packs the whole state into one [C, Pl] matrix, plus a zeros
-        # output and per-step copies — ~3x the state in HLO temps, an
-        # OOM at 1M particles x 256-landmark capacity) degenerates to a
-        # plain stratified gather. On TPU (kernel-tileable Pl) it runs
-        # the bounds-driven multi-ref gather — one kernel pass over
-        # all fields, no index vector, no serialized cumsum/
-        # searchsorted (its dither is the counter-based
-        # offspring_bounds stream rather than the ring's materialized
-        # ``u`` dither; both are stratified draws from the same key).
-        if jax.default_backend() == "tpu" and Pl % 512 == 0:
-            return _local_bounds_resample(state, wn, key, me, Pl,
-                                          particle_fields)
+        # output and per-step copies — about 3x the state in
+        # temporaries) degenerates to a plain stratified gather.
         idx = jnp.clip(jnp.searchsorted(csum_rel, u, side="left"),
                        0, Pl - 1)
         updates = {}
@@ -111,10 +102,8 @@ def ring_resample(state: Any, logw, key, n_min, do_resample, axis: str,
 
     def run_ring(state):
         # Pack the particle fields into one [C, Pl] matrix: the ring
-        # moves a single buffer, and the per-step ancestor pick is a
-        # direct lane-axis gather (measured at 1M particles: ~26 ms vs
-        # ~13.6 s for a transposed row gather, whose major-axis DMA
-        # serializes per row — see models.particles.gather_particles).
+        # moves a single buffer, and the per-step ancestor pick is one
+        # gather along the particle axis.
         shapes = {f: getattr(state, f).shape for f in particle_fields}
         flat = jnp.concatenate(
             [getattr(state, f).reshape(-1, Pl) for f in particle_fields],
@@ -171,25 +160,6 @@ def ring_resample(state: Any, logw, key, n_min, do_resample, axis: str,
     uniform = jnp.full_like(logw, -jnp.log(jnp.asarray(N, dtype)))
     new_logw = jnp.where(need, uniform, jnp.log(jnp.maximum(wn, 1e-38)))
     return new_state, new_logw, need
-
-
-def _local_bounds_resample(state, wn, key, me, Pl, particle_fields,
-                           interpret: bool = False):
-    """Single-shard stratified resample via the bounds-driven Pallas
-    gather (slam_tpu.ops.pallas.gather.bounds_gather_multi): blocked
-    cumsum -> closed-form offspring bounds -> one multi-ref kernel
-    pass over every particle field. Factored out so tests can drive it
-    in interpret mode on CPU."""
-    from slam_tpu.ops.pallas.gather import bounds_gather_multi
-    from slam_tpu.ops.resampling import _cumsum_2d, offspring_bounds
-
-    csum = _cumsum_2d(wn)
-    S_b = offspring_bounds(jax.random.fold_in(key, me), csum, Pl)
-    arrays = [getattr(state, f).reshape(-1, Pl) for f in particle_fields]
-    picked = bounds_gather_multi(arrays, S_b, interpret=interpret)
-    return state._replace(**{
-        f: p.reshape(getattr(state, f).shape)
-        for f, p in zip(particle_fields, picked)})
 
 
 def sharded_estimate_position(logw, xv, axis: str):

@@ -13,7 +13,7 @@ pose solve is replicated; the landmark back-substitution
 dl = All^-1 (bl - W' dp) is local to each shard. Odometry factors and the
 gauge prior are landmark-free and assembled outside the shard_map.
 
-Exact: matches the single-chip solver bit-for-near (f32 reduction order)
+Exact: matches the single-device solver up to f32 reduction order
 — tested against solve_ba on the virtual CPU mesh.
 """
 
@@ -89,7 +89,8 @@ def _assemble_local(poses, lm_local, z, lm_idx, mask, Rinv, lam,
                     Allinv,
                     precision=_HIGHEST).reshape(3 * T, 2 * L_local)
     SW = lax.psum(jnp.matmul(WA, W.T, precision=_HIGHEST), axis)
-    rhs_lm = lax.psum(WA @ bl.reshape(-1), axis)
+    rhs_lm = lax.psum(
+        jnp.matmul(WA, bl.reshape(-1), precision=_HIGHEST), axis)
     return App_diag, bp_obs, SW, rhs_lm, W, Allinv, bl
 
 
@@ -129,7 +130,7 @@ def _sharded_cost(mesh: Mesh, poses, landmarks, odom, odom_info, z,
                       jnp.asarray(odom_info, dtype), r_od,
                       precision=_HIGHEST)
     rp = _prior_residual(poses, anchor)
-    return c_obs + c_od + _PI * jnp.dot(rp, rp)
+    return c_obs + c_od + _PI * jnp.dot(rp, rp, precision=_HIGHEST)
 
 
 def make_sharded_gn_step(mesh: Mesh, T: int, L: int):

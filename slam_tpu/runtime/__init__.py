@@ -1,6 +1,6 @@
 """Runtime: the simulation-driver loop, metrics, telemetry, checkpointing.
 
-TPU-first replacement for the reference wrapper layer
+Replacement for the reference wrapper layer
 (src/backend/wrappers/) and the GUI-side DataGatherer metrics sink
 (src/gui/plotting/DataGatherer.cpp): the whole run is one compiled
 ``lax.scan`` program over observation supersteps, executed on-device; the

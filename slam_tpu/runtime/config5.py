@@ -12,17 +12,17 @@ here as one program over one mesh:
             -> problem_from_run (keyframes = observe supersteps)
             -> solve_ba_sharded (landmark-sharded Schur, device-side LM)
 
-Memory note (why the flagship single-chip run uses a bounded per-particle
+Memory note (why the single-card run uses a bounded per-particle
 capacity): FastSLAM stores a 2x2-EKF per (particle, landmark) — 5 f32
-planes in our packed layout. A FULL 1M x 10k map is 5 * 4 B * 1e6 * 1e4
-= 200 GB of landmark planes, a >=13-chip workload by memory alone
-(v5e = 16 GB HBM); the reference's per-particle std::vector grows the
-same way (fastslam1.cpp's per-particle landmark vectors). The honest
-single-chip point is 1M particles with per-particle capacity sized to
+planes in our packed layout. A FULL 2^20 x 10k map is
+5 * 4 B * 2^20 * 1e4 = 210 GB of landmark planes, more than two 80 GB
+cards hold by memory alone; the reference's per-particle std::vector
+grows the same way (fastslam1.cpp's per-particle landmark vectors). The
+single-card point is 2^20 particles with per-particle capacity sized to
 the landmarks the trajectory actually instantiates (the reference's
-vectors hold exactly that set too); the full 10k capacity runs
-single-chip at 32k particles and scales to 1M+ over the landmark mesh
-axis (each l-shard holds capacity/n_l slots).
+vectors hold exactly that set too); the full 10k capacity runs on one
+card at 32k particles and scales over the landmark mesh axis (each
+l-shard holds capacity/n_l slots).
 """
 
 from __future__ import annotations
@@ -100,22 +100,9 @@ def run_config5(n_particles: int = 1_000_000,
     n_p, n_l = mesh_shape
     devs = list(devices if devices is not None
                 else jax.devices()[: n_p * n_l])
-    if (n_p, n_l) == (1, 1) and jax.default_backend() == "tpu" \
-            and n_particles % 512 == 0 \
-            and (devices is None or devs[0] == jax.devices()[0]):
-        # Single chip: the deferred-resample estimator (kernel 5) —
-        # the resample permutation rides the fused update's one state
-        # pass, so the full-10k capacity point needs 2x state (in+out
-        # buffers) instead of 3x (state + grouped-gather outputs +
-        # their concatenation), which is what OOM'd 32k particles in
-        # round 4. Multi-chip meshes keep the shard_map estimator.
-        from slam_tpu.models.fastslam1 import FastSlam1Deferred
-        est = FastSlam1Deferred(cfg, slam_map.n_landmarks)
-    else:
-        mesh2d = make_mesh_2d(n_p, n_l, devices=devs)
-        est = LandmarkShardedFastSlam1(cfg, slam_map.n_landmarks,
-                                       mesh2d,
-                                       n_particles=n_particles)
+    mesh2d = make_mesh_2d(n_p, n_l, devices=devs)
+    est = LandmarkShardedFastSlam1(cfg, slam_map.n_landmarks, mesh2d,
+                                   n_particles=n_particles)
     runner = Runner(cfg, slam_map, "FASTSLAM1", estimator=est,
                     n_particles=n_particles, rng_impl=rng_impl)
     n_ticks = n_supersteps * cfg.steps_per_observe
@@ -126,9 +113,7 @@ def run_config5(n_particles: int = 1_000_000,
     t0 = time.time()
     # Always the SHARDED solver — on one device the mesh is (1,), so
     # the measured BA stage is the distributed code path at every
-    # device count (ADVICE r3: the single-device run used to fall back
-    # to the replicated solve_ba silently). ba_iters reports ACCEPTED
-    # LM iterations in both cases.
+    # device count. ba_iters reports ACCEPTED LM iterations.
     ba_mesh = Mesh(np.asarray(devs), ("l",))
     poses_ref, _, info = solve_ba_sharded(prob, ba_mesh,
                                           iters=ba_iters,

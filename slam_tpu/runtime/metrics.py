@@ -105,6 +105,7 @@ def write_report(result: RunResult, name: str, out_dir: str = ".") -> str:
         fh.write(_stats_block("Errors", err))
         fh.write(_stats_block("Times", times_us))
         fh.write(f"ATE RMSE: {np.sqrt(np.mean(err**2)) if err.size else 0.0:.10g}\n")
+        fh.write(f"Landmarks mapped: {int(result.final_state.n)}\n")
 
     np.savetxt(os.path.join(path, "errors.txt"), err, fmt="%.10g")
     np.savetxt(os.path.join(path, "times.txt"), times_us, fmt="%.10g")

@@ -3,7 +3,7 @@
 Replaces the reference observation pipeline (getObservations ->
 findVisibleLandmarks -> computeRangeBearing -> addObservationNoise,
 core.cpp:185-273, 438-449) with one fixed-capacity masked computation:
-visibility is evaluated for ALL landmarks at once on the VPU, then the
+visibility is evaluated for ALL landmarks at once, then the
 visible subset is compacted (stably, in landmark-index order, matching
 the reference scan order) into ``[max_obs]`` slots with a validity mask.
 """

@@ -53,8 +53,8 @@ class Simulator:
         self.max_obs = config.max_observations or _default_max_obs(
             slam_map, config.MAX_RANGE)
         # RNG implementation: None = jax default (threefry; fully
-        # reproducible across versions). "rbg" uses the hardware-fast XLA
-        # bit generator — several ms/tick cheaper at 1M particles.
+        # reproducible across versions). "rbg" uses XLA's own bit
+        # generator, which draws fewer operations per random word.
         self.rng_impl = rng_impl
 
     def make_key(self, seed: int):

@@ -79,15 +79,12 @@ def test_ba_noisy_observations_still_improve():
     assert err.mean() < 0.5 * init_err.mean()
 
 
-def test_refine_filter_run_improves_ate():
+def test_refine_filter_run_improves_ate(workload):
     """BA over a filter run's keyframes reduces trajectory error vs the
     filter estimate (the BASELINE.md refinement stage)."""
-    from slam_tpu.config import SlamConfig
-    from slam_tpu.maps import read_map_file
     from slam_tpu.runtime import Runner
 
-    slam_map = read_map_file("/root/reference/data/example_loop1.mat")
-    cfg = SlamConfig.from_ini("/root/reference/data/example_loop1.ini")
+    cfg, slam_map = workload("loop1_like")
     runner = Runner(cfg, slam_map, "FASTSLAM1", n_particles=40)
     result = runner.run(seed=11, n_ticks=2400)
 
@@ -115,9 +112,7 @@ def test_ba_bench_scale_converges_to_map_floor():
     prior had no residual) and its first GN step exploded the cost
     (fixed damping, no step acceptance)."""
     import dataclasses
-    import sys
-    sys.path.insert(0, "/root/repo")
-    from bench import make_ba_problem
+    from slam_tpu.posegraph.problems import make_ba_problem
 
     prob, poses, poses0, lms = make_ba_problem(64, 500)
     init_err = np.linalg.norm(poses0[:, :2] - poses[:, :2],

@@ -2,17 +2,12 @@
 
 import numpy as np
 
-from slam_tpu.config import SlamConfig
-from slam_tpu.maps import read_map_file
 from slam_tpu.runtime import Runner
 from slam_tpu.runtime.checkpoint import load_checkpoint, save_checkpoint
 
-DATA = "/root/reference/data"
 
-
-def test_save_load_roundtrip(tmp_path):
-    slam_map = read_map_file(f"{DATA}/example_loop1.mat")
-    cfg = SlamConfig.from_ini(f"{DATA}/example_loop1.ini")
+def test_save_load_roundtrip(tmp_path, workload):
+    cfg, slam_map = workload("loop1_like")
     runner = Runner(cfg, slam_map, "FASTSLAM1", n_particles=16)
     sim = runner.sim.init(seed=5)
     est = runner.est.init(16)
@@ -29,11 +24,10 @@ def test_save_load_roundtrip(tmp_path):
     np.testing.assert_array_equal(np.asarray(key), np.asarray(key2))
 
 
-def test_resume_bit_exact(tmp_path):
+def test_resume_bit_exact(tmp_path, workload):
     """Interrupt after the first chunk, resume, and match the unbroken
     run's tail exactly."""
-    slam_map = read_map_file(f"{DATA}/example_loop1.mat")
-    cfg = SlamConfig.from_ini(f"{DATA}/example_loop1.ini")
+    cfg, slam_map = workload("loop1_like")
 
     def make():
         return Runner(cfg, slam_map, "FASTSLAM1", n_particles=16)
@@ -54,40 +48,3 @@ def test_resume_bit_exact(tmp_path):
     np.testing.assert_array_equal(full.est_pose[20:], resumed.est_pose)
     np.testing.assert_array_equal(full.true_pose[20:],
                                   resumed.true_pose)
-
-
-def test_deferred_estimator_checkpoint_roundtrip(tmp_path):
-    """DeferredState (particle state + pending bounds + metadata) is an
-    ordinary pytree: checkpoint and restore it bit-exactly — failure
-    recovery covers the flagship deferred-resample path."""
-    import jax
-    from slam_tpu.models.fastslam1 import FastSlam1Deferred
-
-    slam_map = read_map_file(f"{DATA}/example_webmap.mat")
-    cfg = SlamConfig.from_ini(f"{DATA}/example_webmap.ini")
-    est = FastSlam1Deferred(cfg, slam_map.n_landmarks, interpret=True,
-                            fused_predict=False)
-    runner = Runner(cfg, slam_map, "FASTSLAM1", n_particles=512,
-                    estimator=est)
-    sim = runner.sim.init(seed=5)
-    state = est.init(512)
-    key = runner.sim.make_key(2)
-    # Advance a couple of supersteps so S/metadata are non-trivial.
-    step = jax.jit(lambda c: runner._superstep(c, None)[0])
-    carry = (sim, state, key)
-    for _ in range(3):
-        carry = step(carry)
-    sim, state, key = carry
-
-    p = str(tmp_path / "ckd")
-    save_checkpoint(p, sim, state, key, superstep=3)
-    sim2, state2, key2, sstep = load_checkpoint(p, sim, state)
-    assert sstep == 3
-    for a, b in zip(jax.tree_util.tree_leaves(state),
-                    jax.tree_util.tree_leaves(state2)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    # The restored state continues identically.
-    nxt_a = step((sim, state, key))
-    nxt_b = step((sim2, state2, key2))
-    np.testing.assert_array_equal(
-        np.asarray(nxt_a[1].ps.lm), np.asarray(nxt_b[1].ps.lm))

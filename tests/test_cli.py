@@ -4,11 +4,9 @@ import numpy as np
 
 from slam_tpu.cli import main
 
-DATA = "/root/reference/data"
 
-
-def test_cli_headless_run(tmp_path):
-    rc = main(["-m", f"{DATA}/example_loop1.mat", "-method", "FASTSLAM1",
+def test_cli_headless_run(tmp_path, map_path):
+    rc = main(["-m", map_path("loop1_like"), "-method", "FASTSLAM1",
                "-particles", "20", "-ticks", "800", "-seed", "2",
                "-n", "clitest", "-out", str(tmp_path)])
     assert rc == 0
@@ -18,10 +16,10 @@ def test_cli_headless_run(tmp_path):
     assert np.isfinite(errors).all()
 
 
-def test_cli_config_override(tmp_path):
+def test_cli_config_override(tmp_path, map_path):
     """Reference-style -KEY value overrides reach the config
     (utils.cpp:1032-1046 semantics, e.g. -SWITCH_HEADING_KNOWN 0)."""
-    rc = main(["-m", f"{DATA}/example_loop1.mat", "-method", "EKF1",
+    rc = main(["-m", map_path("loop1_like"), "-method", "EKF1",
                "-ticks", "400", "-SWITCH_HEADING_KNOWN", "0",
                "-n", "clitest2", "-out", str(tmp_path)])
     assert rc == 0

@@ -99,47 +99,3 @@ def test_fs1_10k_landmark_map_runs():
     m = compute_metrics(res)
     assert np.isfinite(m.ate_rmse)
     assert int(res.final_state.n) > 0
-
-
-def test_fused_sharded_update_matches_unfused(monkeypatch):
-    """The TPU fused branch of _fs1_update_local (ownership-masked
-    kernel + psum'd weight deltas), driven in Pallas interpret mode on
-    the CPU mesh, == the unfused shard_map path on the same state."""
-    import slam_tpu.parallel.landmarks as LM
-    from slam_tpu.parallel.landmarks import (
-        LandmarkShardedFastSlam1,
-        make_mesh_2d,
-    )
-
-    cfg = SlamConfig(SWITCH_HEADING_KNOWN=1, max_landmarks=8,
-                     max_observations=6)
-    P_n = 256                      # LANE-aligned: fused path eligible
-    mesh = make_mesh_2d(2, 2)
-
-    def run(force_fused):
-        monkeypatch.setattr(LM, "_FORCE_FUSED_INTERPRET", force_fused)
-        est = LandmarkShardedFastSlam1(cfg, 12, mesh, n_particles=P_n)
-        state = est.init()
-        key = jax.random.PRNGKey(5)
-        state = est.predict(state, key, jnp.float32(3.0),
-                            jnp.float32(0.1), jnp.float32(0.0))
-        z = jnp.asarray(np.array([[5.0, 0.3], [4.0, -0.2], [6.0, 0.1],
-                                  [3.0, 0.4], [7.0, -0.3], [2.0, 0.0]],
-                                 np.float32))
-        ids = jnp.asarray(np.array([1, 4, 7, 9, 2, 11], np.int32))
-        zmask = jnp.asarray(np.array([1, 1, 1, 0, 1, 1], bool))
-        # Two updates: the first instantiates new landmarks, the second
-        # exercises the matched path against them.
-        state = est.update(state, jax.random.PRNGKey(8), z, ids, zmask)
-        state = est.update(state, jax.random.PRNGKey(9), z, ids, zmask)
-        return state
-
-    unfused = run(False)
-    fused = run(True)
-    assert int(fused.n) == int(unfused.n)
-    np.testing.assert_array_equal(np.asarray(fused.da_table),
-                                  np.asarray(unfused.da_table))
-    for f in ("logw", "xv", "lm", "lm_P"):
-        np.testing.assert_allclose(np.asarray(getattr(fused, f)),
-                                   np.asarray(getattr(unfused, f)),
-                                   rtol=2e-4, atol=1e-5, err_msg=f)

@@ -1,28 +1,62 @@
 import numpy as np
+import pytest
 
-from slam_tpu.maps import read_map_file, synthetic_map, write_map_file
+from slam_tpu.maps import (
+    REFERENCE_LIKE,
+    read_map_file,
+    synthetic_map,
+    write_map_file,
+    write_reference_like,
+)
 
 
 def test_read_webmap(webmap_map):
     assert webmap_map.landmarks.shape == (35, 2)
     assert webmap_map.waypoints.shape == (17, 2)
-    np.testing.assert_allclose(
-        webmap_map.landmarks[0], [2.9922, -25.7009], rtol=1e-5)
-    np.testing.assert_allclose(
-        webmap_map.waypoints[0], [12.6495, -41.5888], rtol=1e-5)
+    # The loop starts half a segment behind waypoint 0, heading +x.
+    assert webmap_map.waypoints[0, 0] > 0.0
+    np.testing.assert_allclose(webmap_map.waypoints[0, 1], 0.0, atol=1e-5)
+    np.testing.assert_allclose(webmap_map.waypoints[-1],
+                               -webmap_map.waypoints[0], atol=1e-5)
 
 
-def test_read_all_reference_maps():
+def test_read_all_reference_maps(map_path):
     sizes = {
-        "example_loop1": (22, 33),
-        "example_loop2": (25, 30),
-        "example_loop902": (117, 24),
-        "example_webmap": (35, 17),
+        "loop1_like": (22, 33),
+        "loop2_like": (25, 30),
+        "loop902_like": (117, 24),
+        "webmap_like": (35, 17),
     }
     for name, (n_lm, n_wp) in sizes.items():
-        m = read_map_file(f"/root/reference/data/{name}.mat")
+        m = read_map_file(map_path(name))
         assert m.n_landmarks == n_lm, name
         assert m.n_waypoints == n_wp, name
+
+
+@pytest.mark.parametrize("name", sorted(REFERENCE_LIKE))
+def test_committed_maps_match_generator(name, map_path, tmp_path):
+    """data/*_like.{mat,ini} are exactly what tools/make_maps.py writes."""
+    for path in write_reference_like(name, str(tmp_path)):
+        ext = path.rsplit(".", 1)[1]
+        with open(path) as fh, open(map_path(name, ext)) as committed:
+            assert fh.read() == committed.read(), (name, ext)
+
+
+def test_reference_like_landmarks_line_the_path(map_path):
+    """Every landmark lies within the sensor range of the waypoint loop,
+    so each one can be observed."""
+    from slam_tpu.config import SlamConfig
+    for name in REFERENCE_LIKE:
+        m = read_map_file(map_path(name))
+        cfg = SlamConfig.from_ini(map_path(name, "ini"))
+        wp = np.vstack([m.waypoints, m.waypoints[:1]])
+        a, b = wp[:-1], wp[1:]
+        d = b - a
+        t = np.clip(np.einsum("lsk,sk->ls", m.landmarks[:, None] - a[None],
+                              d) / np.sum(d * d, axis=1), 0.0, 1.0)
+        near = a[None] + t[..., None] * d[None]
+        dist = np.linalg.norm(m.landmarks[:, None] - near, axis=-1).min(1)
+        assert dist.max() < cfg.MAX_RANGE, name
 
 
 def test_roundtrip(tmp_path, webmap_map):

@@ -351,32 +351,3 @@ def test_estimate_position_variants():
     fs = FastSlam1(SlamConfig(POSE_ESTIMATE="median"), 2)
     np.testing.assert_allclose(np.asarray(fs.pose(state)), med,
                                rtol=1e-6)
-
-
-def test_resample_bounds_arm_matches_index_path(monkeypatch):
-    """rbpf.resample's TPU arm (offspring-bounds kernel, interpret mode
-    here) == the materialized-index CPU path on the same weights/key —
-    this is the single-chip 1M-particle headline's resample."""
-    import jax
-
-    from slam_tpu.models import rbpf
-
-    P = 512
-    rng = np.random.default_rng(12)
-    state = init_particles(P, capacity=8, n_map_landmarks=8)
-    state = state._replace(
-        xv=jnp.asarray(rng.normal(size=(3, P)).astype(np.float32)),
-        lm=jnp.asarray(rng.normal(size=(2, 8, P)).astype(np.float32)),
-        lm_P=jnp.asarray(rng.normal(size=(3, 8, P)).astype(np.float32)),
-        logw=jnp.asarray(rng.normal(size=P).astype(np.float32) * 3))
-    key = jax.random.PRNGKey(21)
-
-    monkeypatch.setattr(rbpf, "_FORCE_BOUNDS_INTERPRET", False)
-    want = rbpf.resample(state, key, jnp.float32(P), True)
-    monkeypatch.setattr(rbpf, "_FORCE_BOUNDS_INTERPRET", True)
-    got = rbpf.resample(state, key, jnp.float32(P), True)
-
-    for f in ("logw", "xv", "lm", "lm_P"):
-        np.testing.assert_array_equal(np.asarray(getattr(got, f)),
-                                      np.asarray(getattr(want, f)),
-                                      err_msg=f)

@@ -2,8 +2,9 @@
 virtual CPU devices each) form one global 8-device particle mesh and run
 the sharded FastSLAM1 filter — cross-process psum + ppermute-ring
 resampling over the distributed runtime, the CPU stand-in for a
-multi-host TPU pod (SURVEY.md §4 multiprocess-testing prescription; no
-reference counterpart — the reference is single-threaded, §2.9).
+multi-host cluster (SURVEY.md §4 multiprocess-testing prescription; no
+reference counterpart — the reference is single-threaded, §2.9). CPU
+only: several JAX processes must not share one GPU.
 
 Correctness oracle: the SAME global mesh shape run in ONE process must
 produce the same trajectory — the partitioned XLA program is identical,

@@ -19,13 +19,11 @@ except Exception:
 pytestmark = pytest.mark.skipif(not HAVE,
                                 reason="native lib not buildable here")
 
-MAPS = "/root/reference/data"
 
-
-def test_native_map_loader_matches_python():
-    for name in ("example_loop1", "example_loop2", "example_loop902",
-                 "example_webmap"):
-        path = f"{MAPS}/{name}.mat"
+def test_native_map_loader_matches_python(map_path):
+    for name in ("loop1_like", "loop2_like", "loop902_like",
+                 "webmap_like"):
+        path = map_path(name)
         lm, wp = load_map_native(path)
         ref = read_map_file(path)
         np.testing.assert_allclose(lm, ref.landmarks, atol=1e-6)
@@ -81,12 +79,11 @@ def test_native_telemetry_frames_match_python():
     server2.close()
 
 
-def test_streaming_with_native_publisher():
+def test_streaming_with_native_publisher(workload):
     """A short streaming run through the C++ publisher reaches a local
     receiver with the expected message sequence."""
     import threading
 
-    from slam_tpu.config import SlamConfig
     from slam_tpu.runtime import Runner
     from slam_tpu.runtime.telemetry import ZmqPairSocket
 
@@ -104,8 +101,7 @@ def test_streaming_with_native_publisher():
     t = threading.Thread(target=drain, daemon=True)
     t.start()
 
-    slam_map = read_map_file(f"{MAPS}/example_loop1.mat")
-    cfg = SlamConfig.from_ini(f"{MAPS}/example_loop1.ini")
+    cfg, slam_map = workload("loop1_like")
     runner = Runner(cfg, slam_map, "FASTSLAM1", n_particles=12)
     plot = NativeNetworkPlot(ep)
     result = runner.run_streaming(seed=1, n_ticks=160, plot=plot)

@@ -8,8 +8,6 @@ import pytest
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
-from slam_tpu.config import SlamConfig
-from slam_tpu.maps import read_map_file
 from slam_tpu.models.particles import init_particles
 from slam_tpu.parallel import (
     ShardedFastSlam1,
@@ -24,7 +22,6 @@ from slam_tpu.parallel.resampling import (
 )
 from slam_tpu.runtime import Runner, compute_metrics
 
-DATA = "/root/reference/data"
 NDEV = 8
 
 
@@ -134,10 +131,9 @@ def test_sharded_estimate_position_matches(mesh):
 
 @pytest.mark.parametrize("cls,bound", [(ShardedFastSlam1, 1.5),
                                        (ShardedFastSlam2, 1.0)])
-def test_sharded_fastslam_e2e(mesh, cls, bound):
+def test_sharded_fastslam_e2e(mesh, cls, bound, workload):
     """Full sharded runs stay within the single-chip ATE bounds."""
-    slam_map = read_map_file(f"{DATA}/example_loop1.mat")
-    cfg = SlamConfig.from_ini(f"{DATA}/example_loop1.ini")
+    cfg, slam_map = workload("loop1_like")
     est = cls(cfg, slam_map.n_landmarks, mesh, n_particles=64)
     runner = Runner(cfg, slam_map, "FASTSLAM1", estimator=est)
     result = runner.run(seed=7, n_ticks=1600)
@@ -149,9 +145,9 @@ def test_sharded_fastslam_e2e(mesh, cls, bound):
 
 def test_ring_resample_one_device_local_arm():
     """1-device mesh (static_ring_size=1): run_local's searchsorted arm
-    must equal the single-chip stratified resampler driven by the same
-    dither stream (ADVICE r3: this branch carries the single-chip
-    config #5 headline and had zero coverage)."""
+    must equal the single-device stratified resampler driven by the
+    same dither stream (this branch carries the single-card config #5
+    run)."""
     n = 64
     state = _toy_state(n, seed=9)
     logw = np.asarray(np.random.default_rng(5)
@@ -184,36 +180,3 @@ def test_ring_resample_one_device_local_arm():
                                np.asarray(state.xv)[:, idx], atol=0)
     np.testing.assert_allclose(np.asarray(new_logw),
                                np.full(n, -np.log(n)), rtol=1e-5)
-
-
-def test_local_bounds_resample_matches_offspring_bounds():
-    """The TPU arm of run_local (bounds-driven multi-ref kernel,
-    interpret mode here) == a plain gather by the ancestors its
-    offspring bounds encode."""
-    from slam_tpu.ops.resampling import (
-        _cumsum_2d,
-        ancestors_from_bounds,
-        normalize_log_weights,
-        offspring_bounds,
-    )
-    from slam_tpu.parallel.resampling import _local_bounds_resample
-
-    n = 512
-    state = _toy_state(n, seed=2)
-    logw = jnp.asarray(np.random.default_rng(8)
-                       .normal(size=n).astype(np.float32) * 2)
-    state = state._replace(logw=logw)
-    wn = jnp.exp(normalize_log_weights(logw))
-    key = jax.random.PRNGKey(3)
-
-    got = _local_bounds_resample(
-        state, wn, key, jnp.int32(0), n,
-        ("logw", "xv", "Pv", "lm", "lm_P"), interpret=True)
-
-    S_b = offspring_bounds(jax.random.fold_in(key, 0),
-                           _cumsum_2d(wn), n)
-    idx = np.asarray(jnp.clip(ancestors_from_bounds(S_b, n), 0, n - 1))
-    for f in ("logw", "xv", "lm", "lm_P"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(got, f)),
-            np.asarray(getattr(state, f))[..., idx], err_msg=f)

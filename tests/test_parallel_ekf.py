@@ -83,11 +83,11 @@ def test_sharded_ekf_capacity_padding(mesh4):
 
 @pytest.mark.slow
 def test_sharded_ekf_10k_landmarks_smoke():
-    """The scale the component exists for (VERDICT r3 #3): a 10k-
-    landmark map on the 8-way CPU landmark mesh — joint covariance
-    2L x 2L = 20k x 20k (1.6 GB), row-sharded 8 ways. Two supersteps
-    must run, instantiate landmarks, and keep the pose finite. (The
-    full-length single-chip run is the BENCH `bench_ekf_10k` line.)"""
+    """The scale the component exists for: a 10k-landmark map on the
+    8-way CPU landmark mesh — joint covariance 2L x 2L = 20k x 20k
+    (1.6 GB), row-sharded 8 ways. Two supersteps must run, instantiate
+    landmarks, and keep the pose finite. (The single-card run is
+    chip_smoke.py's phase 4.)"""
     from slam_tpu.runtime.config5 import config5_setup
     cfg, slam_map = config5_setup(10_000, capacity=10_000, max_obs=96)
     mesh = make_mesh(8, axis="l")

@@ -6,6 +6,8 @@ import jax.numpy as jnp
 
 from slam_tpu.ops import planes as pk
 
+R = np.diag([0.01, 0.0003]).astype(np.float32)
+
 
 def _rand_spd3(rng, n):
     A = rng.normal(size=(n, 3, 3)).astype(np.float32)
@@ -122,3 +124,47 @@ def test_feature_init_matches_dense():
         np.testing.assert_allclose(
             [[float(p00[i]), float(p01[i])],
              [float(p01[i]), float(p11[i])]], Pf, rtol=1e-3, atol=1e-6)
+
+
+def _planes_inputs(P=300, K=5, seed=0):
+    rng = np.random.default_rng(seed)
+    xv = rng.normal(size=(3, P)).astype(np.float32)
+    lmx = (xv[0] + rng.normal(size=(K, P)) * 5 + 2).astype(np.float32)
+    lmy = (xv[1] + rng.normal(size=(K, P)) * 5 + 1).astype(np.float32)
+    A = rng.normal(size=(K, P)).astype(np.float32) * 0.3
+    B = rng.normal(size=(K, P)).astype(np.float32) * 0.3
+    p00 = A * A + 0.05
+    p11 = B * B + 0.05
+    p01 = 0.3 * A * B
+    return xv, lmx, lmy, p00, p01, p11
+
+
+def test_plane_jacobians_match_stacked():
+    """Plane-form jacobians == the stacked-matrix compute_jacobians used
+    by the EKF path."""
+    from slam_tpu.ops.jacobians import compute_jacobians
+    xv, lmx, lmy, p00, p01, p11 = _planes_inputs(P=40, K=3, seed=9)
+    J = pk.jacobians_planes(xv[0][None], xv[1][None], xv[2][None],
+                            lmx, lmy, p00, p01, p11,
+                            R[0, 0], R[0, 1], R[1, 1])
+    for k in range(3):
+        for i in range(40):
+            Pf = np.array([[p00[k, i], p01[k, i]],
+                           [p01[k, i], p11[k, i]]], np.float32)
+            zp, Hv, Hf, Sf = compute_jacobians(
+                jnp.asarray(xv[:, i]),
+                jnp.asarray(np.array([lmx[k, i], lmy[k, i]], np.float32)),
+                jnp.asarray(Pf), jnp.asarray(R))
+            np.testing.assert_allclose(float(J.zr[k, i]), float(zp[0]),
+                                       rtol=1e-5)
+            np.testing.assert_allclose(float(J.a[k, i]), float(Hf[0, 0]),
+                                       rtol=1e-4, atol=1e-6)
+            np.testing.assert_allclose(float(J.hv10[k, i]),
+                                       float(Hv[1, 0]), rtol=1e-4,
+                                       atol=1e-6)
+            np.testing.assert_allclose(float(J.s00[k, i]),
+                                       float(Sf[0, 0]), rtol=1e-3,
+                                       atol=1e-6)
+            np.testing.assert_allclose(float(J.s01[k, i]),
+                                       float(Sf[0, 1]), rtol=1e-3,
+                                       atol=1e-6)

@@ -3,12 +3,8 @@ bit-exactly where the uninterrupted run would."""
 
 import numpy as np
 
-from slam_tpu.config import SlamConfig
-from slam_tpu.maps import read_map_file
 from slam_tpu.runtime import Runner
 from slam_tpu.runtime.resilience import run_resilient
-
-DATA = "/root/reference/data"
 
 
 class FlakyRunner(Runner):
@@ -31,9 +27,8 @@ class FlakyRunner(Runner):
         return super().run_checkpointed(**kw)
 
 
-def test_run_resilient_recovers(tmp_path):
-    slam_map = read_map_file(f"{DATA}/example_loop1.mat")
-    cfg = SlamConfig.from_ini(f"{DATA}/example_loop1.ini")
+def test_run_resilient_recovers(tmp_path, workload):
+    cfg, slam_map = workload("loop1_like")
     period = cfg.steps_per_observe
     n_ticks = 30 * period
 

@@ -91,11 +91,9 @@ def test_control_messages(pair):
     assert server.recv_multipart() == [b"endPlot"]
 
 
-def test_streaming_run_emits_protocol(tmp_path):
+def test_streaming_run_emits_protocol(tmp_path, workload):
     """A short EKF streaming run against a local PAIR receiver produces
     the expected message sequence (setup + per-superstep emission)."""
-    from slam_tpu.config import SlamConfig
-    from slam_tpu.maps import read_map_file
     from slam_tpu.runtime import Runner
 
     server = ZmqPairSocket("tcp://127.0.0.1:45455", bind=True)
@@ -111,8 +109,7 @@ def test_streaming_run_emits_protocol(tmp_path):
     t = threading.Thread(target=drain, daemon=True)
     t.start()
 
-    slam_map = read_map_file("/root/reference/data/example_loop1.mat")
-    cfg = SlamConfig.from_ini("/root/reference/data/example_loop1.ini")
+    cfg, slam_map = workload("loop1_like")
     runner = Runner(cfg, slam_map, "EKF1")
     plot = NetworkPlot(socket=ZmqPairSocket("tcp://127.0.0.1:45455",
                                             bind=False))
@@ -242,12 +239,10 @@ class StrictController:
     ("EKF1", ("covEllipseAdd", "setCovEllipse")),
     ("FASTSLAM2", ("setParticles", "setFeatureParticles")),
 ])
-def test_streaming_run_strict_controller(method, needs):
+def test_streaming_run_strict_controller(method, needs, workload):
     """A LIVE -plot session must satisfy the stock GUI Controller's
-    dispatch preconditions end-to-end (VERDICT r3 #6: receiver-side
-    validation of the live stream, not re-encoded fixtures)."""
-    from slam_tpu.config import SlamConfig
-    from slam_tpu.maps import read_map_file
+    dispatch preconditions end-to-end (receiver-side validation of the
+    live stream, not re-encoded fixtures)."""
     from slam_tpu.runtime import Runner
 
     port = 45460 + (0 if method == "EKF1" else 1)
@@ -267,8 +262,7 @@ def test_streaming_run_strict_controller(method, needs):
     t = threading.Thread(target=drain, daemon=True)
     t.start()
 
-    slam_map = read_map_file("/root/reference/data/example_loop1.mat")
-    cfg = SlamConfig.from_ini("/root/reference/data/example_loop1.ini")
+    cfg, slam_map = workload("loop1_like")
     runner = Runner(cfg, slam_map, method,
                     n_particles=50 if method != "EKF1" else None)
     plot = NetworkPlot(socket=ZmqPairSocket(ep, bind=False))

@@ -19,7 +19,7 @@ Fixture format (little-endian):
 
 Consumed by tests/test_native.py (reference-encoder golden tests).
 
-Usage: python tools/golden_frames.py [--ref /root/reference]
+Usage: python tools/golden_frames.py --ref <reference checkout>
            [--out tests/data/golden_zmq_frames.bin] [--messages 400]
 """
 
@@ -328,7 +328,8 @@ def read_fixture(path: str):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ref", default="/root/reference")
+    ap.add_argument("--ref", required=True,
+                    help="checkout of the reference source")
     ap.add_argument("--out", default=os.path.join(
         REPO, "tests", "data", "golden_zmq_frames.bin"))
     ap.add_argument("--messages", type=int, default=400)

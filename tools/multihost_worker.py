@@ -4,7 +4,8 @@
 one global mesh). Runs the sharded FastSLAM1 filter end-to-end over the
 global particle mesh — cross-process psum (weight normalization / Neff)
 and ppermute ring resampling ride the distributed runtime exactly as
-they would ride DCN between real TPU hosts.
+they would ride the network between real hosts. CPU only: it pins
+JAX_PLATFORMS=cpu, so several workers never share one GPU.
 
 Launched by tests/test_multihost.py (2 processes x 4 devices) and usable
 standalone, e.g.:
@@ -49,8 +50,7 @@ def main():
 
     import jax
     import numpy as np
-    from slam_tpu.config import SlamConfig
-    from slam_tpu.maps import read_map_file
+    from slam_tpu.maps import load_reference_like
     from slam_tpu.parallel import ShardedFastSlam1, make_mesh
     from slam_tpu.runtime import Runner, compute_metrics
 
@@ -58,8 +58,7 @@ def main():
     assert jax.device_count() == n_global, (jax.device_count(), n_global)
     assert jax.local_device_count() == args.local_devices
 
-    slam_map = read_map_file("/root/reference/data/example_webmap.mat")
-    cfg = SlamConfig.from_ini("/root/reference/data/example_webmap.ini")
+    cfg, slam_map = load_reference_like("webmap_like")
     mesh = make_mesh()
     est = ShardedFastSlam1(cfg, slam_map.n_landmarks, mesh,
                            n_particles=args.particles)

@@ -2,14 +2,15 @@
 """Measure the reference C++ backend's steps/sec on this host.
 
 The reference (matzipan/slam) publishes no benchmark numbers (SURVEY.md
-§6); to make bench.py's ``vs_baseline`` meaningful, this script builds the
-reference backend from /root/reference with its ZMQ telemetry stubbed to a
+§6); this script builds the reference backend from a checkout of its
+source (``--ref``) with its ZMQ telemetry stubbed to a
 no-op (headers for libzmq are absent in this image; telemetry is also not
 part of the compute being measured), runs each method on each map, and
 records the per-turn loop times the backend itself measures
 (slamwrapper.cpp:240-254) into ref_baseline.json.
 
-Usage: python tools/ref_baseline.py [--ref /root/reference] [--out ref_baseline.json]
+Usage: python tools/ref_baseline.py --ref <reference checkout>
+           [--out ref_baseline.json]
 """
 
 from __future__ import annotations
@@ -144,7 +145,8 @@ def measure(binary: str, data: str, method: str, mapname: str,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ref", default="/root/reference")
+    ap.add_argument("--ref", required=True,
+                    help="checkout of the reference source")
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "ref_baseline.json"))

@@ -3,9 +3,9 @@
 
 Runs the sharded FastSLAM1 superstep on 1..N-device meshes with a fixed
 PER-DEVICE particle count (weak scaling) and reports parallel efficiency.
-On a TPU pod slice this measures real ICI collectives; on a dev machine,
-run with virtual devices to validate the sharding compiles and scales
-structurally:
+On a multi-GPU host this measures real NVLink collectives; on a dev
+machine, run with virtual devices to validate the sharding compiles and
+scales structurally:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python tools/scaling_bench.py --platform cpu --particles 4096
@@ -35,19 +35,11 @@ def main():
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    from slam_tpu.config import SlamConfig
-    from slam_tpu.maps import read_map_file, synthetic_map
+    from slam_tpu.maps import load_reference_like
     from slam_tpu.parallel import ShardedFastSlam1, make_mesh
     from slam_tpu.runtime import Runner, compute_metrics
 
-    try:
-        slam_map = read_map_file(
-            "/root/reference/data/example_webmap.mat")
-        cfg = SlamConfig.from_ini(
-            "/root/reference/data/example_webmap.ini")
-    except OSError:
-        slam_map = synthetic_map(35, 17, radius=100.0)
-        cfg = SlamConfig(SWITCH_HEADING_KNOWN=0)
+    cfg, slam_map = load_reference_like("webmap_like")
 
     n_dev = len(jax.devices())
     sizes = [n_dev] if args.all_devices else sorted(
